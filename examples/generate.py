@@ -9,11 +9,11 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from zgml_tpu.io.gguf import GGMLType                      # noqa: E402
-from zgml_tpu.io.llama_loader import load_llama            # noqa: E402
-from zgml_tpu.runtime.engine import LlamaEngine            # noqa: E402
-from zgml_tpu.runtime.sampling import SamplingParams       # noqa: E402
-from zgml_tpu.utils.synthetic import (TINY_TEST,           # noqa: E402
+from zgml.io.gguf import GGMLType                      # noqa: E402
+from zgml.io.llama_loader import load_llama            # noqa: E402
+from zgml.runtime.engine import LlamaEngine            # noqa: E402
+from zgml.runtime.sampling import SamplingParams       # noqa: E402
+from zgml.utils.synthetic import (TINY_TEST,           # noqa: E402
                                       write_synthetic_llama_gguf)
 
 path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/example_llama_q8.gguf"

@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from zgml_tpu.io.gguf import GGMLType
-from zgml_tpu.io.llama_loader import load_llama
-from zgml_tpu.runtime.eval import perplexity, ppl_delta
-from zgml_tpu.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+from zgml.io.gguf import GGMLType
+from zgml.io.llama_loader import load_llama
+from zgml.runtime.eval import perplexity, ppl_delta
+from zgml.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
 
 CORPUS = os.path.join(os.path.dirname(__file__), "data", "corpus_tokens.npy")
 
@@ -92,7 +92,7 @@ def test_corpus_is_natural_language():
 
 
 def test_corpus_q8_delta_small(corpus_models):
-    """North-star drift gate on NON-RANDOM text (VERDICT r4 item 9): Q8_0
+    """North-star drift gate on NON-RANDOM text: Q8_0
     weights within 1% relative ppl of their dequantized copies."""
     dense, q8, _ = corpus_models
     toks = np.load(CORPUS)[:1024]

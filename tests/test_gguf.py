@@ -3,7 +3,7 @@ format-test strategy: byte-built GGUF buffers, src/gguf.zig:507-660)."""
 import numpy as np
 import pytest
 
-from zgml_tpu.io import GGUFFile, GGUFWriter, GGMLType
+from zgml.io import GGUFFile, GGUFWriter, GGMLType
 
 
 @pytest.fixture

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.graph import ComputeGraph, LazyTensor, Op, var, const
-from zgml_tpu.graph.graph import topo_order
+from zgml.graph import ComputeGraph, LazyTensor, Op, var, const
+from zgml.graph.graph import topo_order
 
 
 def test_build_and_shapes():
@@ -121,7 +121,7 @@ def test_composites_match_jnp():
     gm = rng.standard_normal(10).astype(np.float32)
     x, gvar = var("x", (6, 10)), var("g", (10,))
     out = ComputeGraph(x.rms_norm(gvar, 1e-5)).run(x=a, g=gm)
-    from zgml_tpu.ops import refs
+    from zgml.ops import refs
     want = refs.rmsnorm_ref(jnp.asarray(a), jnp.asarray(gm), 1e-5)
     np.testing.assert_allclose(np.asarray(out), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
@@ -147,7 +147,7 @@ def test_conv_and_pool_forward_and_grad():
     y = x.conv2d(w).relu().max_pool2d(2).sum()
     g = ComputeGraph(y)
     val = float(g.run(x=xv, w=wv))
-    from zgml_tpu.nn.layers import conv2d, max_pool2d
+    from zgml.nn.layers import conv2d, max_pool2d
     want = float(jnp.sum(max_pool2d(jax.nn.relu(conv2d(
         jnp.asarray(xv), jnp.asarray(wv))), 2)))
     assert abs(val - want) < 1e-2 * abs(want)
@@ -160,8 +160,8 @@ def test_conv_and_pool_forward_and_grad():
 
 
 def test_rope_slice_assign_scatter_add():
-    """The three VERDICT-9 ops: build-time checks + lowering vs oracles."""
-    from zgml_tpu.ops import refs
+    """The three graph-tier cache ops: build-time checks + lowering vs oracles."""
+    from zgml.ops import refs
     rng = np.random.default_rng(7)
     xh = rng.standard_normal((2, 8, 16)).astype(np.float32)   # [H, T, d]
     pos = np.arange(8)
@@ -204,10 +204,9 @@ def test_rope_slice_assign_scatter_add():
 
 
 def test_graph_kv_cache_decode():
-    """A KV-cache decode step is expressible in the graph tier (VERDICT 9;
-    ref: the sliceAssign-based cache path, api.zig:605-696): write the new
+    """A KV-cache decode step is expressible in the graph tier: write the new
     K/V at a static position, attend q over the live prefix, == jnp oracle."""
-    from zgml_tpu.ops import refs
+    from zgml.ops import refs
     h, s, d, pos = 2, 8, 16, 5
     rng = np.random.default_rng(8)
     ck = rng.standard_normal((h, s, d)).astype(np.float32)
@@ -236,10 +235,9 @@ def test_graph_kv_cache_decode():
 
 
 def test_every_op_has_a_lowering_rule():
-    """No enum member without a lowering rule (VERDICT 9: Op.ROPE was
-    declared with no rule and raised NotImplementedError at run time)."""
+    """No enum member without a lowering rule."""
     import inspect
-    from zgml_tpu.graph import lower
+    from zgml.graph import lower
     src = inspect.getsource(lower)
     for op in Op:
         assert (f"Op.{op.name}" in src) or op in (Op.VAR, Op.CONST) \
@@ -247,20 +245,18 @@ def test_every_op_has_a_lowering_rule():
 
 
 def test_env_reads_centralized():
-    """Every ZGML_TPU_* toggle is read in zgml_tpu/config.py and nowhere else
-    (the reference centralizes capabilities the same way, backend.zig:14-111).
-    runtime/ktime.py may WRITE env vars (the A/B harness mechanism) but must
-    not read toggles ad hoc."""
+    """Every ZGML_* toggle is read in zgml/config.py and nowhere else
+    (the reference centralizes capabilities the same way, backend.zig:14-111)."""
     import pathlib
     import re
-    import zgml_tpu
-    root = pathlib.Path(zgml_tpu.__file__).parent
+    import zgml
+    root = pathlib.Path(zgml.__file__).parent
     offenders = []
     for p in root.rglob("*.py"):
         rel = p.relative_to(root).as_posix()
         if rel == "config.py":
             continue
         for i, line in enumerate(p.read_text().splitlines(), 1):
-            if re.search(r"os\.environ(\.get)?\s*[\[(]\s*['\"]ZGML_TPU", line):
+            if re.search(r"os\.environ(\.get)?\s*[\[(]\s*['\"]ZGML", line):
                 offenders.append(f"{rel}:{i}: {line.strip()}")
     assert not offenders, "\n".join(offenders)

@@ -1,19 +1,29 @@
-"""Pallas kernel conformance vs the jnp oracle (interpret mode on CPU).
+"""Dispatch-API conformance vs the jnp oracle (kernels interpreted on CPU).
 
-The TPU analog of the reference's backend conformance suite
+The analog of the reference's backend conformance suite
 (src/backend/conformance.zig): identical inputs through the reference executor
-(zgml_tpu.ops.refs) and the kernel, compared within tolerance.
+(zgml.ops.refs) and the op's fast path, compared within tolerance.
 """
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.ops import refs
-from zgml_tpu.ops.qmatmul import qmatmul_pallas
-from zgml_tpu.ops.rmsnorm import rmsnorm_pallas
-from zgml_tpu.ops.attention import flash_attention_pallas, decode_attention_pallas
-from zgml_tpu.quant.repack import quantize_weight, dequant_packed
+from zgml.ops import dispatch as ops
+from zgml.ops import refs
+from zgml.quant.repack import quantize_weight, dequant_packed
+
+
+def qmatmul_pallas(x, pw, out_dtype=jnp.float32):
+    return ops.qmatmul(x, pw, out_dtype=out_dtype)
+
+
+def flash_attention_pallas(q, k, v, kv_len=None, q_offset=0, kv_row=None):
+    return ops.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                               kv_row=kv_row)
+
+
+def decode_attention_pallas(q, k, v, kv_len):
+    return ops.decode_attention(q, k, v, kv_len)
 
 
 def _to_jax(pw):
@@ -46,16 +56,6 @@ def test_qmatmul_matches_jnp_ref(kind):
     got = np.asarray(qmatmul_pallas(jnp.asarray(x), pw))
     want = np.asarray(refs.qmatmul_ref(jnp.asarray(x), pw.qvals, pw.scales, kind))
     np.testing.assert_allclose(got, want[:, :n], rtol=1e-2, atol=5e-2 * np.sqrt(k))
-
-
-@pytest.mark.parametrize("shape", [(4, 576), (2, 3, 64), (16, 2048)])
-def test_rmsnorm_matches_oracle(shape):
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
-    g = jnp.asarray(rng.standard_normal(shape[-1]).astype(np.float32))
-    got = rmsnorm_pallas(x, g, 1e-5)
-    want = refs.rmsnorm_ref(x, g, 1e-5)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2)])
@@ -103,85 +103,6 @@ def test_decode_attention_matches_oracle(hq, hkv, kv_len):
                                rtol=2e-2, atol=2e-2)
 
 
-def test_fused_ffn_matches_separate():
-    """FFN megakernel == gate/up matmuls + swiglu + down (q8, part-padded)."""
-    from zgml_tpu.ops.ffn import ffn_compatible, fused_ffn_pallas
-    from zgml_tpu.quant.repack import concat_packed, quantize_weight, repack_q8_0
-    from zgml_tpu.quant.blocks import quantize_q8_0
-    rng = np.random.default_rng(11)
-    d, f, m = 256, 768, 5
-    wg = rng.standard_normal((f, d)).astype(np.float32)
-    wu = rng.standard_normal((f, d)).astype(np.float32)
-    wd = rng.standard_normal((d, f)).astype(np.float32)
-    x = rng.standard_normal((m, d)).astype(np.float32)
-
-    pwd = _to_jax(quantize_weight(wd, "q8_0"))
-    parts = [quantize_weight(wg, "q8_0", n_align=1),
-             quantize_weight(wu, "q8_0", n_align=1)]
-    gu = _to_jax(concat_packed(parts, part_pad=pwd.k_pad))
-    assert ffn_compatible(gu, pwd)
-
-    got = np.asarray(fused_ffn_pallas(jnp.asarray(x), gu, pwd))
-    # separate-path oracle on the same quantized values
-    from zgml_tpu.ops import refs
-    g = np.asarray(refs.qmatmul_ref(jnp.asarray(x), _to_jax(parts[0]).qvals,
-                                    _to_jax(parts[0]).scales, "q8_0"))[:, :f]
-    u = np.asarray(refs.qmatmul_ref(jnp.asarray(x), _to_jax(parts[1]).qvals,
-                                    _to_jax(parts[1]).scales, "q8_0"))[:, :f]
-    act = (g / (1 + np.exp(-g))) * u
-    want = np.asarray(refs.qmatmul_ref(jnp.asarray(act.astype(np.float32)),
-                                       pwd.qvals, pwd.scales, "q8_0"))[:, :d]
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=0.5)
-
-
-def test_fused_ffn_large_m():
-    from zgml_tpu.ops.ffn import fused_ffn_pallas
-    from zgml_tpu.quant.repack import concat_packed, quantize_weight
-    rng = np.random.default_rng(12)
-    d, f, m = 256, 512, 300   # m > bm tile -> M-grid path
-    wg = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wu = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wd = rng.standard_normal((d, f)).astype(np.float32) * 0.1
-    x = rng.standard_normal((m, d)).astype(np.float32)
-    pwd = _to_jax(quantize_weight(wd, "q8_0"))
-    gu = _to_jax(concat_packed([quantize_weight(wg, "q8_0", n_align=1),
-                                quantize_weight(wu, "q8_0", n_align=1)],
-                               part_pad=pwd.k_pad))
-    got = np.asarray(fused_ffn_pallas(jnp.asarray(x), gu, pwd))
-    from zgml_tpu.quant.repack import dequant_packed
-    gf = dequant_packed(quantize_weight(wg, "q8_0", n_align=1))
-    uf = dequant_packed(quantize_weight(wu, "q8_0", n_align=1))
-    df = dequant_packed(quantize_weight(wd, "q8_0"))
-    g = x @ gf.T
-    u = x @ uf.T
-    act = (g / (1 + np.exp(-g))) * u
-    want = act @ df.T
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=0.3)
-
-
-def test_fused_ffn_nonaligned_k():
-    """SmolLM-like dims: d=576 (pads to 640, no 256-divisor -> full-K chunk)."""
-    from zgml_tpu.ops.ffn import ffn_compatible, fused_ffn_pallas
-    from zgml_tpu.quant.repack import concat_packed, quantize_weight, dequant_packed
-    rng = np.random.default_rng(13)
-    d, f, m = 576, 1536, 3
-    wg = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wu = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wd = rng.standard_normal((d, f)).astype(np.float32) * 0.1
-    x = rng.standard_normal((m, d)).astype(np.float32)
-    pwd = _to_jax(quantize_weight(wd, "q8_0"))
-    gu = _to_jax(concat_packed([quantize_weight(wg, "q8_0", n_align=1),
-                                quantize_weight(wu, "q8_0", n_align=1)],
-                               part_pad=pwd.k_pad))
-    assert ffn_compatible(gu, pwd)
-    got = np.asarray(fused_ffn_pallas(jnp.asarray(x), gu, pwd))
-    g = x @ dequant_packed(quantize_weight(wg, "q8_0", n_align=1)).T
-    u = x @ dequant_packed(quantize_weight(wu, "q8_0", n_align=1)).T
-    act = (g / (1 + np.exp(-g))) * u
-    want = act @ dequant_packed(quantize_weight(wd, "q8_0")).T
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=0.3)
-
-
 def test_flash_attention_odd_tq():
     """Odd query lengths (ppl windows of W+1 tokens) pad internally."""
     rng = np.random.default_rng(14)
@@ -199,9 +120,8 @@ def test_flash_attention_odd_tq():
 
 
 def test_flash_attention_kv_row_offset():
-    """kv_row scalar-prefetch offset: a batch-1 query over row r of a larger
-    batched cache == slicing row r (the serving prefill-into-slot path)."""
-    from zgml_tpu.ops.attention import flash_attention_pallas
+    """kv_row offset: a batch-1 query over row r of a larger batched cache
+    == slicing row r (the serving prefill-into-slot path)."""
     rng = np.random.default_rng(31)
     B, hq, hkv, tq, s, d = 3, 4, 2, 8, 64, 16
     q = jnp.asarray(rng.standard_normal((1, hq, tq, d)), jnp.float32)
@@ -259,24 +179,6 @@ def test_decode_attention_edge_sweep(b, hq, hkv, d, s, kv_len):
                                rtol=2e-2, atol=2e-2)
 
 
-@pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
-def test_qmatmul_greedy_matches_argmax(kind):
-    """Fused GEMV+argmax == argmax over the plain GEMV's logits: exact token
-    equality (same tiles, same accumulation order), padded vocab masked."""
-    from zgml_tpu.ops.qmatmul import qmatmul_greedy_pallas
-    rng = np.random.default_rng(31)
-    k, n = 256, 448          # n % 128 != 0 -> padded columns must be masked
-    w = rng.standard_normal((n, k)).astype(np.float32)
-    pw = _to_jax(quantize_weight(w, kind))
-    for seed in range(3):
-        x = jnp.asarray(np.random.default_rng(seed).standard_normal((1, k)),
-                        jnp.float32)
-        tok = qmatmul_greedy_pallas(x, pw)
-        assert tok is not None and tok.shape == (1,)
-        logits = qmatmul_pallas(x, pw)
-        assert int(tok[0]) == int(np.argmax(np.asarray(logits)[0]))
-
-
 @pytest.mark.parametrize("hq,hkv,tq,s,kv_len,q_off", [
     (4, 4, 8, 64, 64, 56),      # n_rep=1, tiny odd Tq
     (6, 2, 40, 96, 90, 50),     # nothing tile-aligned
@@ -296,37 +198,3 @@ def test_flash_attention_edge_sweep(hq, hkv, tq, s, kv_len, q_off):
     want = refs.gqa_attention_ref(q, k, v, mask[None, None])
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-2, atol=2e-2)
-
-
-def test_fused_ffn_q4_matches_separate():
-    """Q4_0 FFN megakernel == separate path (packed-half grid; the down
-    tile's lo/hi nibbles consume act from two F ranges)."""
-    from zgml_tpu.ops.ffn import ffn_compatible, fused_ffn_pallas
-    from zgml_tpu.quant.repack import (concat_packed, dequant_packed,
-                                       quantize_weight)
-    rng = np.random.default_rng(14)
-    d, f, m = 512, 1024, 5
-    wg = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wu = rng.standard_normal((f, d)).astype(np.float32) * 0.1
-    wd = rng.standard_normal((d, f)).astype(np.float32) * 0.1
-    x = rng.standard_normal((m, d)).astype(np.float32)
-    pwd = _to_jax(quantize_weight(wd, "q4_0"))
-    gu = _to_jax(concat_packed([quantize_weight(wg, "q4_0", n_align=1),
-                                quantize_weight(wu, "q4_0", n_align=1)],
-                               part_pad=pwd.k_pad))
-    assert ffn_compatible(gu, pwd)
-    got = np.asarray(fused_ffn_pallas(jnp.asarray(x), gu, pwd))
-    g = x @ dequant_packed(quantize_weight(wg, "q4_0", n_align=1)).T
-    u = x @ dequant_packed(quantize_weight(wu, "q4_0", n_align=1)).T
-    act = (g / (1 + np.exp(-g))) * u
-    want = act @ dequant_packed(quantize_weight(wd, "q4_0")).T
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=0.3)
-
-
-def test_fused_ffn_q4_7b_shape_compat():
-    """The 7B layout (d=4096, f=11008->11264) must route to the megakernel."""
-    from zgml_tpu.ops.ffn import ffn_compatible
-    from zgml_tpu.quant.repack import PackedWeight
-    gu = PackedWeight("q4_0", 22528, 4096, 22528, 4096, None, None)
-    wd = PackedWeight("q4_0", 4096, 11008, 4096, 11264, None, None)
-    assert ffn_compatible(gu, wd)

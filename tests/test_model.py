@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.io.llama_loader import load_llama, config_from_gguf
-from zgml_tpu.models.llama import LlamaConfig, LlamaModel, init_params
-from zgml_tpu.runtime.engine import LlamaEngine
-from zgml_tpu.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
-from zgml_tpu.io.gguf import GGMLType
+from zgml.io.llama_loader import load_llama, config_from_gguf
+from zgml.models.llama import LlamaConfig, LlamaModel, init_params
+from zgml.runtime.engine import LlamaEngine
+from zgml.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+from zgml.io.gguf import GGMLType
 
 
 @pytest.fixture(scope="module")
@@ -29,7 +29,7 @@ def dense_model(tiny_gguf):
 
 
 def test_config_from_gguf(tiny_gguf):
-    from zgml_tpu.io.gguf import GGUFFile
+    from zgml.io.gguf import GGUFFile
     with GGUFFile(tiny_gguf) as gf:
         cfg = config_from_gguf(gf)
     assert cfg.d_model == TINY_TEST.d_model
@@ -81,7 +81,7 @@ def test_quantized_close_to_dense(tiny_gguf, dense_model):
     """ref: quantized cosine-similarity >= 0.99, llama_inference.zig:911-954."""
     qmodel, _ = load_llama(tiny_gguf, mode="quantized")
     # quantized path must actually use PackedWeight
-    from zgml_tpu.quant.repack import PackedWeight
+    from zgml.quant.repack import PackedWeight
     assert isinstance(qmodel.params["layers"][0]["wqkv"], PackedWeight)
     toks = jnp.asarray([[3, 1, 4, 1, 5, 9, 2, 6]], jnp.int32)
     ld, _ = dense_model.forward(dense_model.params, toks,
@@ -130,8 +130,8 @@ def test_mixed_quant_kinds_load(tmp_path):
     """Real GGUFs mix quant types (e.g. Q8_0 attn_v in a Q4_0 model); the
     loader must fall back to unfused projections for mixed groups."""
     import numpy as np
-    from zgml_tpu.io.gguf import GGUFWriter, GGMLType
-    from zgml_tpu.utils.synthetic import TINY_TEST
+    from zgml.io.gguf import GGUFWriter, GGMLType
+    from zgml.utils.synthetic import TINY_TEST
     cfg = TINY_TEST
     rng = np.random.default_rng(0)
     d, hd = cfg.d_model, cfg.head_dim
@@ -190,10 +190,10 @@ def test_post_hoc_quantize_matches_dense():
     dense-loaded model quantized in place tracks the dense outputs."""
     import tempfile, os
     import numpy as np
-    from zgml_tpu.io.gguf import GGMLType
-    from zgml_tpu.io.llama_loader import load_llama
-    from zgml_tpu.runtime.engine import LlamaEngine
-    from zgml_tpu.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+    from zgml.io.gguf import GGMLType
+    from zgml.io.llama_loader import load_llama
+    from zgml.runtime.engine import LlamaEngine
+    from zgml.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "m.gguf")
         write_synthetic_llama_gguf(path, TINY_TEST, GGMLType.F32, seed=21)
@@ -204,7 +204,7 @@ def test_post_hoc_quantize_matches_dense():
 
         qmodel, _ = load_llama(path, mode="dense")
         qmodel.quantize("q8_0")
-        from zgml_tpu.quant.repack import PackedWeight
+        from zgml.quant.repack import PackedWeight
         l0 = qmodel.params["layers"][0]
         assert any(isinstance(v, PackedWeight) for v in l0.values())
         eq = LlamaEngine(qmodel, donate_cache=False)

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from zgml_tpu import native
+from zgml import native
 
 
 pytestmark = pytest.mark.skipif(not native.available(),
@@ -17,21 +17,21 @@ def _numpy_only():
 
     @contextlib.contextmanager
     def ctx():
-        old = os.environ.get("ZGML_TPU_NATIVE")
-        os.environ["ZGML_TPU_NATIVE"] = "0"
+        old = os.environ.get("ZGML_NATIVE")
+        os.environ["ZGML_NATIVE"] = "0"
         try:
             yield
         finally:
             if old is None:
-                os.environ.pop("ZGML_TPU_NATIVE", None)
+                os.environ.pop("ZGML_NATIVE", None)
             else:
-                os.environ["ZGML_TPU_NATIVE"] = old
+                os.environ["ZGML_NATIVE"] = old
     return ctx()
 
 
 @pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
 def test_quantize_bitexact(kind):
-    from zgml_tpu.quant import blocks
+    from zgml.quant import blocks
     rng = np.random.default_rng(0)
     x = rng.standard_normal(4096).astype(np.float32)
     fn = blocks.quantize_q8_0 if kind == "q8_0" else blocks.quantize_q4_0
@@ -43,7 +43,7 @@ def test_quantize_bitexact(kind):
 
 @pytest.mark.parametrize("kind", ["q8_0", "q4_0"])
 def test_repack_bitexact(kind):
-    from zgml_tpu.quant import blocks, repack
+    from zgml.quant import blocks, repack
     rng = np.random.default_rng(1)
     n, k = 96, 576
     w = rng.standard_normal((n, k)).astype(np.float32)
@@ -59,7 +59,7 @@ def test_repack_bitexact(kind):
 
 
 def test_native_dequant_matches_numpy():
-    from zgml_tpu.quant import blocks
+    from zgml.quant import blocks
     lib = native.get_lib()
     rng = np.random.default_rng(2)
     x = rng.standard_normal(2048).astype(np.float32)

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.io.gguf import GGMLType
-from zgml_tpu.io.llama_loader import load_llama
-from zgml_tpu.runtime.engine import LlamaEngine
-from zgml_tpu.runtime.serving import ContinuousBatchingEngine
-from zgml_tpu.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+from zgml.io.gguf import GGMLType
+from zgml.io.llama_loader import load_llama
+from zgml.runtime.engine import LlamaEngine
+from zgml.runtime.serving import ContinuousBatchingEngine
+from zgml.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +89,7 @@ def test_burst_matches_stepwise(model):
 def test_chunked_admission_interleaves(model):
     """A long prompt must NOT stall decoding slots: with prefill_chunk=4 and
     an 11-token prompt, already-decoding requests keep emitting on the steps
-    that also carry a prefill chunk (VERDICT 6)."""
+    that also carry a prefill chunk."""
     serve = ContinuousBatchingEngine(model, max_batch=2, prefill_chunk=4)
     r0 = serve.submit([1, 2, 3], 12)
     # get r0 decoding
@@ -113,12 +113,11 @@ def test_chunked_admission_interleaves(model):
 
 def test_mesh_serving_matches_single(model):
     """TP+dp sharded serving (shard_map decode/prefill/burst) must produce
-    the same greedy streams as the unsharded engine (VERDICT r2 missing 1:
-    serving a TP-sharded model)."""
+    the same greedy streams as the unsharded engine."""
     import jax
-    from zgml_tpu.models.llama import LlamaModel
-    from zgml_tpu.parallel import make_mesh
-    from zgml_tpu.parallel.tp import shard_llama_params_fused
+    from zgml.models.llama import LlamaModel
+    from zgml.parallel import make_mesh
+    from zgml.parallel.tp import shard_llama_params
 
     prompts = [[1, 2, 3], [10, 20, 30, 40], [7], [9, 8]]
     singles = []
@@ -127,7 +126,7 @@ def test_mesh_serving_matches_single(model):
         singles.append(eng.generate(p, 6))
 
     mesh = make_mesh(tp=2, dp=2, devices=jax.devices()[:4])
-    params = shard_llama_params_fused(model, mesh)
+    params = shard_llama_params(model.params, mesh, model.cfg)
     model_sh = LlamaModel(model.cfg, params)
     serve = ContinuousBatchingEngine(model_sh, max_batch=4, mesh=mesh)
     outs = serve.run([(p, 6) for p in prompts])
@@ -139,9 +138,9 @@ def test_mesh_serving_burst_and_slot_reuse(model):
     """Mesh serving: more requests than slots + burst decode (scan inside
     shard_map) still match the single-request engine."""
     import jax
-    from zgml_tpu.models.llama import LlamaModel
-    from zgml_tpu.parallel import make_mesh
-    from zgml_tpu.parallel.tp import shard_llama_params_fused
+    from zgml.models.llama import LlamaModel
+    from zgml.parallel import make_mesh
+    from zgml.parallel.tp import shard_llama_params
 
     prompts = [[i + 1, i + 2, i + 3] for i in range(5)]
     singles = []
@@ -150,7 +149,7 @@ def test_mesh_serving_burst_and_slot_reuse(model):
         singles.append(eng.generate(p, 4))
 
     mesh = make_mesh(tp=2, dp=1, devices=jax.devices()[:2])
-    params = shard_llama_params_fused(model, mesh)
+    params = shard_llama_params(model.params, mesh, model.cfg)
     model_sh = LlamaModel(model.cfg, params)
     serve = ContinuousBatchingEngine(model_sh, max_batch=2, mesh=mesh)
     outs = serve.run([(p, 4) for p in prompts], burst=4)

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.models.llama import LlamaConfig, LlamaModel, init_params
-from zgml_tpu.parallel import (make_mesh, make_sharded_forward,
+from zgml.models.llama import LlamaConfig, LlamaModel, init_params
+from zgml.parallel import (make_mesh, make_sharded_forward,
                                make_sharded_train_step, shard_llama_params)
 
 CFG = LlamaConfig(vocab_size=256, d_model=64, n_heads=8, n_kv_heads=4,
@@ -44,8 +44,8 @@ def test_tp_forward_matches_single_device(model):
                                     CFG.max_seq_len, CFG.head_dim)
     # ref tier: both sides run exact-f32 oracle math, so only the psum
     # reduction order differs — a TP wiring bug smaller than the kernel
-    # tier's bf16-class 2e-2 tolerance cannot hide here (VERDICT r4 weak 7)
-    from zgml_tpu.ops.dispatch import force_ref
+    # tier's bf16-class 2e-2 tolerance cannot hide here
+    from zgml.ops.dispatch import force_ref
     with force_ref():
         ref_logits2, _ = model.forward(model.params, tokens,
                                        model.init_cache(2), 0)
@@ -72,7 +72,7 @@ def test_tp_decode_matches_single_device(model):
     logits, _ = fwd(params, tokens, model.init_cache(b), 0)
     np.testing.assert_allclose(np.asarray(logits), np.asarray(ref_logits),
                                rtol=2e-2, atol=2e-2)
-    from zgml_tpu.ops.dispatch import force_ref
+    from zgml.ops.dispatch import force_ref
     with force_ref():
         ref_logits2, _ = model.forward(model.params, tokens,
                                        model.init_cache(b), 0)
@@ -86,7 +86,7 @@ def test_tp_decode_matches_single_device(model):
 def test_tp_train_step_matches_single_device(model):
     """Sharded grads/update must equal the unsharded train step (Megatron
     _tp_copy exactness)."""
-    from zgml_tpu.optim.sgd import sgd_update
+    from zgml.optim.sgd import sgd_update
 
     mesh = make_mesh(tp=4, dp=2)
     rng = np.random.default_rng(2)
@@ -127,8 +127,8 @@ def test_shard_packed_exact(kind, axis, tp):
     """shard_packed must be an exact re-layout: each local shard dequantizes
     to the corresponding slice of the global dequantized weight."""
     import dataclasses
-    from zgml_tpu.parallel.tp import shard_packed
-    from zgml_tpu.quant.repack import dequant_packed, quantize_weight
+    from zgml.parallel.tp import shard_packed
+    from zgml.quant.repack import dequant_packed, quantize_weight
     rng = np.random.default_rng(3)
     n, k = 96, 256
     w = rng.standard_normal((n, k)).astype(np.float32)
@@ -153,8 +153,8 @@ def test_shard_packed_exact(kind, axis, tp):
 
 def _quantize_stacked_params(params, kind):
     """Dense stacked params -> PackedWeight (stacked) for every matmul leaf."""
-    from zgml_tpu.io.llama_loader import _stack_packed
-    from zgml_tpu.quant.repack import quantize_weight
+    from zgml.io.llama_loader import _stack_packed
+    from zgml.quant.repack import quantize_weight
     out = {"tok_embd": params["tok_embd"], "out_norm": params["out_norm"]}
     layers = {}
     for name, leaf in params["layers"].items():
@@ -188,7 +188,7 @@ def test_tp_forward_quantized_matches_single_device(model, kind):
     np.testing.assert_allclose(np.asarray(logits), np.asarray(ref_logits),
                                rtol=2e-2, atol=2e-2)
     # ref tier: dequant is exact f32 on both sides -> tight bound
-    from zgml_tpu.ops.dispatch import force_ref
+    from zgml.ops.dispatch import force_ref
     with force_ref():
         ref_logits2, _ = qmodel.forward(qparams, tokens,
                                         qmodel.init_cache(4), 0)
@@ -210,12 +210,11 @@ def test_tp_unsharded_packedweight_rejected(model):
 
 
 def test_ring_attention_matches_single_device():
-    """Context-parallel ring attention == dense causal attention, on BOTH
-    tiers: the blockwise-flash kernel tier (per-hop LSE merge, bf16 MXU
-    tolerance) and the einsum ref tier (tight f32 tolerance)."""
-    from zgml_tpu.ops.dispatch import force_ref
-    from zgml_tpu.parallel.ring import make_ring_attention
-    from zgml_tpu.ops import refs
+    """Context-parallel ring attention == dense causal attention, under the
+    default dispatch and under force_ref (the ring is one einsum path)."""
+    from zgml.ops.dispatch import force_ref
+    from zgml.parallel.ring import make_ring_attention
+    from zgml.ops import refs
     import jax.numpy as jnp
     mesh = make_mesh(tp=4, dp=2)
     rng = np.random.default_rng(7)
@@ -225,9 +224,9 @@ def test_ring_attention_matches_single_device():
     v = jnp.asarray(rng.standard_normal((b, h, t, d)).astype(np.float32))
     mask = refs.causal_mask(t, t)
     want = refs.attention_ref(q, k, v, mask[None, None])
-    got = make_ring_attention(mesh, axis="tp")(q, k, v)   # kernel tier
+    got = make_ring_attention(mesh, axis="tp")(q, k, v)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-2, atol=2e-2)
+                               rtol=2e-4, atol=2e-4)
     with force_ref():
         got_ref = make_ring_attention(mesh, axis="tp")(q, k, v)
     np.testing.assert_allclose(np.asarray(got_ref), np.asarray(want),
@@ -235,10 +234,10 @@ def test_ring_attention_matches_single_device():
 
 
 def test_ring_attention_flash_gqa():
-    """Kernel-tier ring with GQA (n_rep=2): the un-repeated KV rotates; the
-    flash hop maps query heads to their KV head in the BlockSpec."""
-    from zgml_tpu.parallel.ring import make_ring_attention
-    from zgml_tpu.ops import refs
+    """The ring with GQA (n_rep=2): the un-repeated KV rotates and each
+    query head folds its own KV head's blocks."""
+    from zgml.parallel.ring import make_ring_attention
+    from zgml.ops import refs
     import jax.numpy as jnp
     mesh = make_mesh(tp=8, dp=1)
     rng = np.random.default_rng(9)
@@ -250,12 +249,12 @@ def test_ring_attention_flash_gqa():
     mask = refs.causal_mask(t, t)
     want = refs.gqa_attention_ref(q, k, v, mask[None, None])
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-2, atol=2e-2)
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_ring_attention_noncausal():
-    from zgml_tpu.parallel.ring import make_ring_attention
-    from zgml_tpu.ops import refs
+    from zgml.parallel.ring import make_ring_attention
+    from zgml.ops import refs
     import jax.numpy as jnp
     mesh = make_mesh(tp=8, dp=1)
     rng = np.random.default_rng(8)
@@ -271,7 +270,7 @@ def test_ring_attention_noncausal():
 
 def test_pp_forward_matches_single_device():
     """Pipeline-parallel forward (layer-sharded stages) == unsharded."""
-    from zgml_tpu.parallel.pp import make_pp_forward, shard_pp_params
+    from zgml.parallel.pp import make_pp_forward, shard_pp_params
     import jax.numpy as jnp
     cfg = LlamaConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                       d_ff=128, n_layers=8, max_seq_len=32)
@@ -295,7 +294,7 @@ def test_pp_microbatch_flops_scale_down():
     """GPipe schedule: per-device FLOPs ~= (M+pp-1)/(M*pp) of sequential —
     the schedule does REAL pipelining, not everyone-computes-every-cycle
     (which would be ~1.0 here)."""
-    from zgml_tpu.parallel.pp import make_pp_forward, shard_pp_params
+    from zgml.parallel.pp import make_pp_forward, shard_pp_params
     cfg = LlamaConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                       d_ff=128, n_layers=8, max_seq_len=32)
     model = LlamaModel(cfg, init_params(cfg, seed=4))
@@ -326,8 +325,8 @@ def test_pp_microbatch_flops_scale_down():
 def test_pp_train_step_matches_single_device():
     """Pipelined GPipe training step == single-device step (exact grads via
     the _pp_ingest/_pp_collect boundary ops, incl. the tied-embedding path)."""
-    from zgml_tpu.parallel.pp import make_pp_train_step, shard_pp_params
-    from zgml_tpu.optim.sgd import sgd_update
+    from zgml.parallel.pp import make_pp_train_step, shard_pp_params
+    from zgml.optim.sgd import sgd_update
     cfg = LlamaConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                       d_ff=128, n_layers=4, max_seq_len=32, tied_lm_head=True)
     model = LlamaModel(cfg, init_params(cfg, seed=7))
@@ -352,7 +351,7 @@ def test_pp_train_step_matches_single_device():
 
     assert abs(float(loss) - float(ref_loss)) < 1e-4
     # atol covers bf16-dot rounding: the PP microbatch split changes the
-    # flash-attention accumulation order (ops use bf16 MXU operands)
+    # attention accumulation order (ops use bf16 operands)
     for name in ("tok_embd", "out_norm"):
         np.testing.assert_allclose(np.asarray(new_params[name]),
                                    np.asarray(ref_params[name]),
@@ -368,8 +367,8 @@ def test_cp_prefill_2048_matches_single_device():
     """Engine context-parallel prefill: a 2048-token prompt sharded 8 ways
     (ring attention over 'cp') == single-device forward, and decode continues
     on the engine's normal path afterwards."""
-    from zgml_tpu.ops.dispatch import force_ref
-    from zgml_tpu.runtime.engine import LlamaEngine
+    from zgml.ops.dispatch import force_ref
+    from zgml.runtime.engine import LlamaEngine
     cfg = LlamaConfig(vocab_size=128, d_model=64, n_heads=4, n_kv_heads=2,
                       d_ff=128, n_layers=2, max_seq_len=2056)
     model = LlamaModel(cfg, init_params(cfg, seed=11))
@@ -402,15 +401,15 @@ def test_cp_prefill_2048_matches_single_device():
                                rtol=2e-2, atol=2e-2)
 
 
-# -- TP over the FUSED kernel path (VERDICT r2 item 4) ------------------------
+# -- TP over the unrolled quantized inference layout --------------------------
 
 @pytest.fixture(scope="module")
 def fused_q4_model(tmp_path_factory):
-    """Small q4_0 model with the full fused-view pipeline (wqkv, wo3,
-    ffn_q4n) — unrolled layers, exactly the flagship decode layout."""
-    from zgml_tpu.io.gguf import GGMLType
-    from zgml_tpu.io.llama_loader import load_llama
-    from zgml_tpu.utils.synthetic import write_synthetic_llama_gguf
+    """Small q4_0 model with fused projections (wqkv, w_gate_up) —
+    unrolled layers, exactly the flagship decode layout."""
+    from zgml.io.gguf import GGMLType
+    from zgml.io.llama_loader import load_llama
+    from zgml.utils.synthetic import write_synthetic_llama_gguf
     cfg = LlamaConfig(vocab_size=256, d_model=256, n_heads=4, n_kv_heads=2,
                       d_ff=512, n_layers=2, max_seq_len=64)
     path = str(tmp_path_factory.mktemp("tpq4") / "tp_fused_q4.gguf")
@@ -420,14 +419,14 @@ def fused_q4_model(tmp_path_factory):
 
 
 def test_tp_fused_decode_matches_single_device(fused_q4_model):
-    """TP decode THROUGH the fused attention-block kernel: per-shard
-    re-derived wqkv/wo3/ffn_q4n views + local-head kernels + psum'd
-    residuals == the single-device fused path."""
-    from zgml_tpu.parallel.tp import shard_llama_params_fused
-    from zgml_tpu.runtime.profile import global_profile
+    """TP decode through the matmul kernel: per-shard regrouped wqkv and
+    w_gate_up + local-head attention + psum'd residuals == the
+    single-device path."""
+    from zgml.parallel.tp import shard_llama_params
+    from zgml.runtime.profile import global_profile
     model = fused_q4_model
     cfg = model.cfg
-    assert "wo3" in model.params["layers"][0]
+    assert "wqkv" in model.params["layers"][0]
 
     # single-device fused reference: prefill a short context then decode
     prompt = np.random.default_rng(7).integers(0, 256, (1, 6)).astype(np.int32)
@@ -437,7 +436,7 @@ def test_tp_fused_decode_matches_single_device(fused_q4_model):
     ref_logits, ref_cache = model.forward(model.params, tok, cache, 6)
 
     mesh = make_mesh(tp=2, dp=1, devices=jax.devices()[:2])
-    params = shard_llama_params_fused(model, mesh)
+    params = shard_llama_params(model.params, mesh, cfg)
     model_sh = LlamaModel(cfg, params)
     fwd = make_sharded_forward(model_sh, mesh)
     cache2 = model.init_cache(1, layout="unrolled")   # TP: per-layer list
@@ -446,8 +445,8 @@ def test_tp_fused_decode_matches_single_device(fused_q4_model):
     logits, new_cache = fwd(params, tok, cache2, 6)
     np.testing.assert_allclose(np.asarray(logits), np.asarray(ref_logits),
                                rtol=2e-2, atol=2e-2)
-    # the fused kernel actually ran (placement counter, no silent fallback)
-    assert global_profile.op_tiers.get(("attn_block", "pallas"), 0) > 0
+    # the matmul kernel actually ran (placement counter, no silent fallback)
+    assert global_profile.op_tiers.get(("qmatmul", "interpret"), 0) > 0
     # cache row equivalence at the decode position
     ref_k = np.concatenate([np.asarray(k[:, :, 6]) for k in ref_cache["k"]], 1)
     new_k = np.concatenate([np.asarray(k[:, :, 6]) for k in new_cache["k"]], 1)
@@ -456,15 +455,15 @@ def test_tp_fused_decode_matches_single_device(fused_q4_model):
 
 
 def test_shard_layer_fused_views_exact(fused_q4_model):
-    """Each shard's re-derived wqkv dequantizes exactly to the matching
+    """Each shard's regrouped wqkv dequantizes exactly to the matching
     head-segment columns of the global weight (no re-quantization)."""
-    from zgml_tpu.parallel.tp import shard_layer_fused
-    from zgml_tpu.quant.repack import dequant_packed
+    from zgml.parallel.tp import shard_unrolled_layer
+    from zgml.quant.repack import dequant_packed
     model = fused_q4_model
     cfg = model.cfg
     layer = model.params["layers"][0]
     tp = 2
-    stacked, specs = shard_layer_fused(layer, cfg, tp)
+    stacked = shard_unrolled_layer(layer, cfg, tp)
     hq_l = cfg.n_heads // tp
     hkv_l = cfg.n_kv_heads // tp
     hd = cfg.head_dim

@@ -8,12 +8,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from zgml_tpu.models import demos
-from zgml_tpu.nn.losses import cross_entropy_idx, mean_sq_err
-from zgml_tpu.nn.train import train_supervised
-from zgml_tpu.optim.adam import AdamConfig, adam_init, adam_update
-from zgml_tpu.optim.sgd import sgd_init, sgd_momentum_update, sgd_update
-from zgml_tpu.io.checkpoint import save_checkpoint, load_checkpoint
+from zgml.models import demos
+from zgml.nn.losses import cross_entropy_idx, mean_sq_err
+from zgml.nn.train import train_supervised
+from zgml.optim.adam import AdamConfig, adam_init, adam_update
+from zgml.optim.sgd import sgd_init, sgd_momentum_update, sgd_update
+from zgml.io.checkpoint import save_checkpoint, load_checkpoint
 
 
 def test_sgd_reduces_quadratic():
@@ -76,7 +76,7 @@ def test_mlp_classifier_learns_blobs():
 
 
 def test_conv_classifier_on_synthetic_mnist(tmp_path):
-    from zgml_tpu.data import load_mnist, write_synthetic_mnist
+    from zgml.data import load_mnist, write_synthetic_mnist
     write_synthetic_mnist(tmp_path, n_train=256, n_test=64)
     xi, yi = load_mnist(tmp_path, "train")
     xt, yt = load_mnist(tmp_path, "test")
@@ -95,14 +95,14 @@ def test_autoencoder_reconstructs():
     x = jax.nn.sigmoid(jnp.asarray(codes @ basis))
     x = np.asarray(x)
     p = demos.autoencoder_init(64, 16)
-    from zgml_tpu.nn.train import train_unsupervised
+    from zgml.nn.train import train_unsupervised
     p, losses = train_unsupervised(p, demos.autoencoder_loss, x, epochs=30,
                                    batch_size=64, adam=AdamConfig(lr=3e-3))
     assert losses[-1] < losses[0] * 0.5
 
 
 def test_dataloader_shuffles_and_batches():
-    from zgml_tpu.data import DataLoader
+    from zgml.data import DataLoader
     x = np.arange(100)
     y = np.arange(100) * 2
     dl = DataLoader(x, y, batch_size=16, seed=0)
@@ -145,7 +145,7 @@ def test_checkpoint_optimizer_state(tmp_path):
 def test_llama_end_to_end_training():
     """Full llama training step path (the reference cannot train attention —
     backward.zig:393-404 panics; here jax.grad covers the whole model)."""
-    from zgml_tpu.models.llama import LlamaConfig, LlamaModel, init_params
+    from zgml.models.llama import LlamaConfig, LlamaModel, init_params
     cfg = LlamaConfig(vocab_size=64, d_model=32, n_heads=4, n_kv_heads=2,
                       d_ff=64, n_layers=2, max_seq_len=16, tied_lm_head=True)
     model = LlamaModel(cfg, init_params(cfg, seed=0))
@@ -154,9 +154,9 @@ def test_llama_end_to_end_training():
     seqs = np.stack([np.arange(i, i + 9) % 16 for i in rng.integers(0, 16, 64)])
 
     def loss_fn(params, x, y):
-        # kernel tier stays on: flash attention trains through its Pallas VJP
+        # the default dispatch trains: attention differentiates as XLA
         logits, _ = model.forward(params, x, model.init_cache(x.shape[0]), 0)
-        from zgml_tpu.nn.losses import cross_entropy_idx
+        from zgml.nn.losses import cross_entropy_idx
         return cross_entropy_idx(logits[:, :-1], y[:, 1:])
 
     p, losses = train_supervised(model.params, loss_fn,

@@ -6,7 +6,7 @@ bytes assembled from the wire format directly.
 """
 import numpy as np
 
-from zgml_tpu.runtime.xplane import parse_xspace
+from zgml.runtime.xplane import parse_xspace
 
 
 def _varint(v: int) -> bytes:
@@ -41,7 +41,7 @@ def test_parse_minimal_xspace(tmp_path):
             + _field(4, 2, ev2))
     md1 = _field(1, 0, 1) + _field(2, 2, b"%fusion.1 = f32[8]{0} ...")
     md2 = _field(1, 0, 2) + _field(2, 2, b"%custom-call.7")
-    plane = (_field(2, 2, b"/device:TPU:0")
+    plane = (_field(2, 2, b"/device:GPU:0")
              + _field(3, 2, line)
              + _field(4, 2, _field(1, 0, 1) + _field(2, 2, md1))
              + _field(4, 2, _field(1, 0, 2) + _field(2, 2, md2)))
@@ -52,7 +52,7 @@ def test_parse_minimal_xspace(tmp_path):
     planes = parse_xspace(str(p))
     assert len(planes) == 1
     pl = planes[0]
-    assert pl.name == "/device:TPU:0"
+    assert pl.name == "/device:GPU:0"
     assert len(pl.lines) == 1
     ln = pl.lines[0]
     assert ln.name == "XLA Ops"
@@ -62,3 +62,32 @@ def test_parse_minimal_xspace(tmp_path):
         ("%custom-call.7", 200, 75),
     ]
     assert int(np.sum([e.duration_ps for e in ln.events])) == 125
+
+
+def _plane(name: bytes) -> bytes:
+    return _field(2, 2, name)
+
+
+def test_device_planes_selects_gpu(tmp_path):
+    from zgml.runtime.xplane import device_planes
+    space = b"".join(_field(1, 2, _plane(n)) for n in
+                     (b"/host:CPU", b"/device:GPU:0", b"/device:GPU:1"))
+    p = tmp_path / "t.xplane.pb"
+    p.write_bytes(space)
+    got = device_planes(parse_xspace(str(p)))
+    assert [pl.name for pl in got] == ["/device:GPU:0", "/device:GPU:1"]
+
+
+def test_device_planes_without_gpu_fails(tmp_path):
+    import pytest
+    from zgml.runtime.xplane import device_planes
+    p = tmp_path / "t.xplane.pb"
+    p.write_bytes(_field(1, 2, _plane(b"/host:CPU")))
+    with pytest.raises(ValueError, match="no /device:GPU plane"):
+        device_planes(parse_xspace(str(p)))
+
+
+def test_window_stats_union_of_overlaps():
+    from zgml.runtime.xplane import Event, window_stats
+    evs = [Event("a", 0, 10), Event("b", 5, 10), Event("c", 30, 10)]
+    assert window_stats(evs) == (40, 25)      # idle 15 of 40 ps

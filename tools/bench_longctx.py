@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Long-context decode: int8-KV vs bf16-KV, and decode-rate-vs-max_seq
-flatness (the DMA-clamp check: decode HBM traffic must scale with kv_len,
-not max_seq).
+flatness (decode memory traffic should scale with kv_len, not max_seq).
 
-VERDICT r1 item 2 "Done" criteria:
-  - decode tok/s flat as max_seq grows 2k -> 8k at fixed kv_len
-  - int8-KV >= bf16-KV at >= 2k context / bs >= 8
+What it checks:
+  - decode tok/s as max_seq grows 2k -> 8k at fixed kv_len
+  - int8-KV vs bf16-KV at >= 2k context / bs >= 8
 """
 from __future__ import annotations
 
@@ -48,11 +47,11 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from zgml_tpu.io.gguf import GGMLType
-    from zgml_tpu.io.llama_loader import load_llama
-    from zgml_tpu.runtime.engine import LlamaEngine
-    from zgml_tpu.utils import synthetic
-    from zgml_tpu.utils.synthetic import write_synthetic_llama_gguf
+    from zgml.io.gguf import GGMLType
+    from zgml.io.llama_loader import load_llama
+    from zgml.runtime.engine import LlamaEngine
+    from zgml.utils import synthetic
+    from zgml.utils.synthetic import write_synthetic_llama_gguf
 
     cache_dir = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), ".bench_cache")
@@ -72,7 +71,7 @@ def main():
     flat = {}
     for ms in max_seqs:
         m2 = dataclasses.replace(model.cfg, max_seq_len=ms)
-        from zgml_tpu.models.llama import LlamaModel
+        from zgml.models.llama import LlamaModel
         mdl = LlamaModel(m2, model.params)
         eng = LlamaEngine(mdl, batch=args.batch)
         flat[ms] = round(rate(eng, args.ctx, args.tg), 1)
@@ -83,7 +82,7 @@ def main():
     # -- int8 vs bf16 at this context ----------------------------------------
     ms = max_seqs[0]
     m2 = dataclasses.replace(model.cfg, max_seq_len=ms)
-    from zgml_tpu.models.llama import LlamaModel
+    from zgml.models.llama import LlamaModel
     mdl = LlamaModel(m2, model.params)
     r_bf16 = flat[ms]
     eng8 = LlamaEngine(mdl, batch=args.batch, cache_dtype="int8")

@@ -4,10 +4,8 @@ efficiency at 1 chip / 1 host / N hosts).
 
 Runs the tp-sharded decode forward on a ('dp','tp') mesh over however many
 devices exist and reports tokens/s and efficiency vs the single-device rate.
-On this 1-chip environment it validates on the virtual CPU mesh
-(--force-cpu-devices N); on a pod slice it runs as-is (add
-jax.distributed.initialize via zgml_tpu.parallel.mesh.multihost_init for
-multi-host).
+On the GPUs of one host it runs as-is; --force-cpu-devices N validates the
+structure on a virtual CPU mesh (no timing meaning there).
 """
 from __future__ import annotations
 
@@ -35,15 +33,15 @@ def main():
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                    f" --xla_force_host_platform_device_count="
                                    f"{args.force_cpu_devices}").strip()
-        os.environ["ZGML_TPU_KERNELS"] = "ref"
+        os.environ["ZGML_KERNELS"] = "ref"
         import jax
         jax.config.update("jax_platforms", "cpu")
     else:
         import jax
 
     import jax.numpy as jnp
-    from zgml_tpu.models.llama import LlamaConfig, LlamaModel, init_params
-    from zgml_tpu.parallel import (make_mesh, make_sharded_forward,
+    from zgml.models.llama import LlamaConfig, LlamaModel, init_params
+    from zgml.parallel import (make_mesh, make_sharded_forward,
                                    shard_llama_params)
 
     n_dev = len(jax.devices())

@@ -4,7 +4,7 @@ bs=1-32, roofline-vs-achieved tokens/s).
 
 Each batch size gets its own compiled decode plan (the engine's shape-bucket
 discipline); throughput is aggregate generated tokens/s over an on-device
-decode_n scan, RTT-amortized.
+decode_n scan.
 """
 from __future__ import annotations
 
@@ -31,11 +31,11 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from zgml_tpu.io.gguf import GGMLType
-    from zgml_tpu.io.llama_loader import load_llama
-    from zgml_tpu.runtime.engine import LlamaEngine
-    from zgml_tpu.utils import synthetic
-    from zgml_tpu.utils.synthetic import write_synthetic_llama_gguf
+    from zgml.io.gguf import GGMLType
+    from zgml.io.llama_loader import load_llama
+    from zgml.runtime.engine import LlamaEngine
+    from zgml.utils import synthetic
+    from zgml.utils.synthetic import write_synthetic_llama_gguf
 
     cfg = dataclasses.replace(synthetic.SMOLLM_135M, tied_lm_head=False,
                               max_seq_len=1024)

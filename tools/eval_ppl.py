@@ -36,8 +36,8 @@ def main():
         args.tokens = corpus
 
     import jax
-    from zgml_tpu.io.llama_loader import load_llama
-    from zgml_tpu.runtime.eval import perplexity
+    from zgml.io.llama_loader import load_llama
+    from zgml.runtime.eval import perplexity
 
     qmodel, _ = load_llama(args.model, mode="quantized")
     dmodel, _ = load_llama(args.model, mode="dense")

@@ -1,14 +1,12 @@
 """Train a byte-level BPE on the repo's own documentation and tokenize it —
-the zero-egress stand-in for WikiText-2 (VERDICT r4 item 9: the ppl drift
-gate needs non-random text; random tokens give ppl ~= vocab and hide
-quantization deltas structurally).
+the zero-egress stand-in for WikiText-2.
 
 Emits:
   tests/data/bpe/vocab.json + merges.txt   (loadable by BPETokenizer.from_files)
   tests/data/corpus_tokens.npy             (int32 ids, natural zipfian stream)
 
 The encoder pipeline is the real one: the exact GPT-2 pre-tokenizer scanner +
-iterative lowest-rank merge from zgml_tpu.io.tokenizer (ref:
+iterative lowest-rank merge from zgml.io.tokenizer (ref:
 src/tokenizer.zig:19-379); only the merge table is learned here instead of
 downloaded.
 
@@ -23,7 +21,7 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from zgml_tpu.io.tokenizer import _BYTE_ENCODER, BPETokenizer  # noqa: E402
+from zgml.io.tokenizer import _BYTE_ENCODER, BPETokenizer  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,7 +91,7 @@ def main():
     with open(os.path.join(outdir, "vocab.json"), "w") as f:
         json.dump(vocab, f, ensure_ascii=False)
     with open(os.path.join(outdir, "merges.txt"), "w") as f:
-        f.write("#version: zgml_tpu repo-docs bpe\n")
+        f.write("#version: zgml repo-docs bpe\n")
         for a, b in merges:
             f.write(f"{a} {b}\n")
 

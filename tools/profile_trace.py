@@ -1,21 +1,15 @@
 #!/usr/bin/env python
 """Per-op device-timeline profile of the compiled decode step.
 
-The TPU analog of the reference's per-step execution profile with layout
+The analog of the reference's per-step execution profile with layout
 annotations (src/graph.zig:911-1112): captures a jax.profiler trace of an
-N-step decode burst on the REAL chip, parses the xplane dump directly
-(zgml_tpu/runtime/xplane.py — the stock parsers are version-locked and break
+N-step decode burst on the GPU, parses the xplane dump directly
+(zgml/runtime/xplane.py — the stock parsers are version-locked and break
 against the installed protobuf), and renders
 
-  - per-op aggregate: device time by normalized HLO name (custom-call Pallas
-    kernels, fusions, copies, DUS cache writes), count, us/step
-  - the module window vs sum-of-ops — the residue is scheduling gaps
-    (per-kernel launch + first-block DMA bubbles)
-
-This is the harness that found the round-5 decode wins: the FFN kernel
-running at 545 GB/s vs the attention kernel's ~600 (fixed by the int8
-gate/up phase) and the f32-scale share of weight traffic (fixed by bf16
-scale storage).
+  - per-op aggregate: device time by normalized kernel name (the Pallas
+    matmul kernel, fusions, copies, cache writes), count, us/step
+  - the module window vs sum-of-ops — the residue is gaps between kernels
 
 Usage:
   python tools/profile_trace.py [packed.safetensors] [--kv 192] [--steps 8]
@@ -47,12 +41,11 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from zgml_tpu.io.packed_ckpt import load_packed_llama
+    from zgml.io.packed_ckpt import load_packed_llama
 
     print("devices:", jax.devices(), flush=True)
-    model = load_packed_llama(args.ckpt, derive=False)
+    model = load_packed_llama(args.ckpt)
     model.params = jax.device_put(model.params)
-    model.attach_derived()
     jax.block_until_ready(jax.tree.leaves(model.params)[0])
     cfg = model.cfg
     cache = model.init_cache(1)
@@ -81,17 +74,12 @@ def main():
     if not files:
         print("no xplane dump found under", args.outdir)
         return 1
-    from zgml_tpu.runtime.xplane import parse_xspace
-    planes = parse_xspace(files[0])
-    dev = next((p for p in planes if p.name.startswith("/device:TPU")), None)
-    if dev is None:
-        print("no TPU device plane in trace")
-        return 1
-    mods = next(ln for ln in dev.lines if ln.name == "XLA Modules")
-    ops = next(ln for ln in dev.lines if ln.name == "XLA Ops")
-    m = max(mods.events, key=lambda e: e.duration_ps)
-    w0, w1 = m.offset_ps, m.offset_ps + m.duration_ps
-    evs = [e for e in ops.events if w0 <= e.offset_ps < w1]
+    from zgml.runtime.xplane import device_planes, parse_xspace, window_stats
+    dev = device_planes(parse_xspace(files[0]))[0]
+    # the GPU plane's lines are CUDA streams; the trace holds only the burst
+    evs = [e for ln in dev.lines if ln.name.startswith("Stream")
+           for e in ln.events]
+    window, busy = window_stats(evs)
     agg = collections.defaultdict(lambda: [0, 0])
     for e in evs:
         key = re.sub(r"[.\d]+", "#", e.name.split(" = ")[0])
@@ -99,16 +87,14 @@ def main():
         agg[key][1] += e.duration_ps
     n = args.steps
     total = sum(v[1] for v in agg.values())
-    print(f"\nmodule: {m.name.split('(')[0]}  "
-          f"{m.duration_ps / 1e9 / n:.3f} ms/step ({n} steps)")
+    print(f"\nwindow {window / 1e9 / n:.3f} ms/step ({n} steps), device "
+          f"busy {busy / window:.3f}, idle {1 - busy / window:.3f}")
     print(f"{'us/step':>9s} {'x/step':>7s}  op")
     for key, (cnt, dur) in sorted(agg.items(), key=lambda kv: -kv[1][1])[
             : args.top]:
         print(f"{dur / 1e6 / n:9.1f} {cnt / n:7.1f}  {key[:80]}")
     print(f"{'-' * 40}\n{total / 1e6 / n:9.1f}         sum of ops "
-          f"(> window means overlapped events)")
-    print(f"{(m.duration_ps - min(total, m.duration_ps)) / 1e6 / n:9.1f}"
-          f"         window residue (gaps/launches) if ops < window")
+          f"(> busy means overlapped events)")
     return 0
 
 

@@ -26,11 +26,11 @@ def main():
     args = ap.parse_args()
 
     import jax.numpy as jnp
-    from zgml_tpu.io.checkpoint import save_checkpoint
-    from zgml_tpu.models.llama import LlamaConfig, LlamaModel, init_params
-    from zgml_tpu.nn.losses import cross_entropy_idx
-    from zgml_tpu.nn.train import train_supervised
-    from zgml_tpu.optim.adam import AdamConfig
+    from zgml.io.checkpoint import save_checkpoint
+    from zgml.models.llama import LlamaConfig, LlamaModel, init_params
+    from zgml.nn.losses import cross_entropy_idx
+    from zgml.nn.train import train_supervised
+    from zgml.optim.adam import AdamConfig
 
     cfg = LlamaConfig(vocab_size=64, d_model=args.d_model, n_heads=4,
                       n_kv_heads=2, d_ff=2 * args.d_model,
@@ -52,7 +52,7 @@ def main():
     print(f"saved {args.out}")
 
     # quick sanity generation with the trained weights
-    from zgml_tpu.runtime.engine import LlamaEngine
+    from zgml.runtime.engine import LlamaEngine
     eng = LlamaEngine(LlamaModel(cfg, params), donate_cache=False)
     print("sample:", eng.generate([3, 4, 5], 8))
 
